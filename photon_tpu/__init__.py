@@ -1,6 +1,6 @@
-"""photon_tpu — a TPU-native differentiable PIV/BOS synthetic image renderer.
+"""photon_tpu — a differentiable PIV/BOS synthetic image renderer in JAX.
 
-A from-scratch JAX/Pallas reimplementation of the capabilities of the
+A from-scratch JAX reimplementation of the capabilities of the
 ``photon`` CUDA + Python renderer (reference: lalitkrajendran/photon):
 synthetic particle-image-velocimetry (PIV) and background-oriented-schlieren
 (BOS) image generation through a single-lens camera model, with optional
@@ -11,8 +11,7 @@ Design notes
 Everything on the compute path is functional JAX: static shapes, masked rays
 instead of divergent control flow, ``lax``-based loops, and scatter-add sensor
 integration — so the whole forward pipeline `jit`s, `vmap`s, `grad`s and
-shards over a `jax.sharding.Mesh`.  Hot paths additionally have fused Pallas
-TPU kernels (see ``photon_tpu.ops``).
+shards over a `jax.sharding.Mesh`.
 
 Reference-layer map (see SURVEY.md for the full inventory):
   config.py           <- python_codes/create_simulation_parameters.py (C16)
@@ -25,7 +24,7 @@ Reference-layer map (see SURVEY.md for the full inventory):
   ops/march.py        <- trace_rays_through_density_gradients.h integrators (C13)
   ops/sensor.py       <- parallel_ray_tracing.cu intersect_sensor{,_02} (C12 sensor)
   models/render.py    <- parallel_ray_tracing.cu kernel + host runtime (C11, C12)
-  parallel/           <- TPU-native multi-chip equivalents (mesh/psum; ref is single-GPU)
+  parallel/           <- multi-device sharding (mesh/psum; ref is single-GPU)
   pipeline.py         <- run_simulation_02.run_simulation_02 (C2)
   cli.py              <- batch_run_simulation.py (C1)
   analysis/           <- light_ray_processing.py, synthetic_fields.py (C17, C18)

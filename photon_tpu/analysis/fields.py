@@ -1,6 +1,6 @@
 """Synthetic density fields and the paraxial BOS oracle.
 
-TPU-native replacement for the reference's field-authoring utilities
+Replacement for the reference's field-authoring utilities
 (C17 in SURVEY.md, ``python_codes/synthetic_fields.py`` and
 ``createNRRD.py``): analytic sine/Gaussian scalar fields with closed-form
 gradients, NRRD export, and the theoretical-deflection calculators used to

@@ -1,6 +1,6 @@
 """Light-ray data analysis: per-dot averaging and BOS deflection extraction.
 
-TPU-native replacement for the reference's ray-data validation pipeline
+Replacement for the reference's ray-data validation pipeline
 (C18 in SURVEY.md, ``python_codes/light_ray_processing.py``):
 
 * ray pos/dir binary IO — ref: load_light_ray_data (:143-210) and the

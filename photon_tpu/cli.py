@@ -1,6 +1,6 @@
 """Batch CLI: run simulations over a directory of parameter files.
 
-TPU-native replacement for the reference's batch driver (C1 in SURVEY.md,
+Replacement for the reference's batch driver (C1 in SURVEY.md,
 ``python_codes/batch_run_simulation.py``): glob parameter files
 (.json native, .mat for reference configs), slice with start-index/count
 for job arrays, run each case, write artifacts, report timing.
@@ -19,6 +19,7 @@ import time
 
 from photon_tpu.config import SimulationConfig
 from photon_tpu.pipeline import run_simulation, save_result
+from photon_tpu.utils.compile_cache import enable_compile_cache
 
 
 def _load_config(path: str) -> SimulationConfig:
@@ -61,6 +62,7 @@ def main(argv=None) -> int:
                         help="write a sample parameter file to PARAMS "
                         "and exit")
     args = parser.parse_args(argv)
+    enable_compile_cache()
 
     if args.make_sample:
         make_sample(args.make_sample, args.params)

@@ -1,6 +1,6 @@
 """Optical-system construction and flattening.
 
-TPU-native replacement for the reference's optical-system layer:
+Replacement for the reference's optical-system layer:
 
 * lens design / lensmaker solve —
   ref: run_simulation_02.create_single_lens_optical_system (:33-256) and

@@ -1,6 +1,6 @@
 """Fused forward renderer: source -> rays -> (density march) -> lens -> sensor.
 
-TPU-native replacement for the reference's CUDA kernel + host runtime
+Replacement for the reference's CUDA kernel + host runtime
 (C11/C12 in SURVEY.md, ``parallel_ray_tracing.cu``):
 
 * ray generation — ref: generate_lightfield_angular_data (:71-237)
@@ -15,7 +15,7 @@ Execution model: where the reference launches one CUDA thread per ray in
 KMAX sequential 10k-particle chunks, we build the full (P*R)-ray batch as
 static-shape arrays and let XLA tile it; oversized batches are processed
 in fixed-size chunks via ``lax.map`` (see ``render_image``'s
-``rays_per_chunk``), which bounds HBM exactly like the reference's
+``rays_per_chunk``), which bounds device memory exactly like the reference's
 particle chunking (ref: parallel_ray_tracing.cu:3506-3515).
 """
 from __future__ import annotations
@@ -34,6 +34,10 @@ from photon_tpu.models.optics import CameraSetup
 from photon_tpu.models.scenes import LightfieldSource
 from photon_tpu.ops.lens import RayBundle, propagate_system
 from photon_tpu.ops.sensor import bilinear_splat, diffraction_splat
+
+# full-f32 products: ray positions are ~1e6 um and Mie angles need more
+# than TF32's 10 mantissa bits
+_HI = jax.lax.Precision.HIGHEST
 
 
 @dataclass(frozen=True)
@@ -137,10 +141,11 @@ def generate_rays(source_x, source_y, source_z, source_radiance,
         angles, table = scattering                            # (A,), (A, D)
         inv_rot = jnp.asarray(inverse_rotation_matrix, dtype=f32)
         beam = jnp.asarray(beam_propagation_vector, dtype=f32)
-        world_dir = jnp.einsum("ij,prj->pri", inv_rot, d)
+        world_dir = jnp.einsum("ij,prj->pri", inv_rot, d, precision=_HI)
         world_dir = world_dir / jnp.linalg.norm(world_dir, axis=-1,
                                                 keepdims=True)
-        cosang = jnp.clip(jnp.einsum("j,prj->pr", beam, world_dir), -1.0, 1.0)
+        cosang = jnp.clip(jnp.einsum("j,prj->pr", beam, world_dir,
+                                     precision=_HI), -1.0, 1.0)
         scatter_angle = jnp.arccos(cosang)
         # linear interpolation on the uniform angle grid (ref: :186-201)
         del_angle = angles[1] - angles[0]
@@ -271,12 +276,12 @@ def _generate_and_march(chunk, params: RenderParams, march_fn,
                             dtype=rays.pos.dtype)
         inv_rot = jnp.asarray(inverse_rotation_matrix, dtype=rays.pos.dtype)
         rot = jnp.asarray(rotation_matrix, dtype=rays.pos.dtype)
-        pos_w = (rays.pos - shift) @ inv_rot.T
-        dir_w = rays.dir @ inv_rot.T
+        pos_w = jnp.matmul(rays.pos - shift, inv_rot.T, precision=_HI)
+        dir_w = jnp.matmul(rays.dir, inv_rot.T, precision=_HI)
         rays_w = RayBundle(pos_w, dir_w, rays.wavelength, rays.radiance)
         rays_w = march_fn(rays_w)
-        pos_c = rays_w.pos @ rot.T + shift
-        dir_c = rays_w.dir @ rot.T
+        pos_c = jnp.matmul(rays_w.pos, rot.T, precision=_HI) + shift
+        dir_c = jnp.matmul(rays_w.dir, rot.T, precision=_HI)
         dir_c = dir_c / jnp.linalg.norm(dir_c, axis=-1, keepdims=True)
         rays = RayBundle(pos_c, dir_c, rays.wavelength, rays_w.radiance)
     return rays
@@ -367,7 +372,7 @@ def render_image(cfg: SimulationConfig, setup: CameraSetup,
     """Render the full raw image for a light-field source.
 
     Chunks particles so at most ~rays_per_chunk rays are in flight
-    (the TPU analogue of the reference's KMAX relaunch loop,
+    (the analogue of the reference's KMAX relaunch loop,
     ref: parallel_ray_tracing.cu:3506-3515), accumulating into one image.
     """
     params = RenderParams.from_setup(cfg, setup, source)

@@ -1,7 +1,7 @@
 """Light-field source generation: PIV particle clouds, BOS dot patterns,
 calibration grids.
 
-TPU-native replacement for the reference's scene layer (C5/C7 in SURVEY.md):
+Replacement for the reference's scene layer (C5/C7 in SURVEY.md):
 
 * PIV particles + Gaussian-sheet radiance —
   ref: run_simulation_02.load_lightfield_data (:774-996)

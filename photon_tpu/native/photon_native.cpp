@@ -1,11 +1,11 @@
 // photon_native: C++ host-runtime kernels for photon_tpu.
 //
-// TPU-native replacement for the reference's native host-side data path:
+// Replacement for the reference's native host-side data path:
 // the teem-based NRRD volume loader and the refractive-index gradient
 // precompute that the CUDA host runtime performs before kernel launch
 // (ref: cuda_codes/trace_rays_through_density_gradients.h loadNRRD
 // :1663-1817, setData :1820-2002), plus the cubic B-spline prefilter the
-// reference runs as CUDA kernels (CubicInterpolationCUDA).  On TPU these
+// reference runs as CUDA kernels (CubicInterpolationCUDA).  Here these
 // are host-side data-preparation stages feeding device arrays, so they
 // live in portable C++ (exposed through ctypes; Python fallbacks exist in
 // photon_tpu.volume / photon_tpu.ops.interp).

@@ -1,6 +1,6 @@
 """Volume sampling: trilinear (CUDA-texture semantics) and tricubic B-spline.
 
-TPU-native replacement for the reference's texture-unit interpolation
+Replacement for the reference's texture-unit interpolation
 (C14 in SURVEY.md):
 
 * hardware trilinear ``tex3D`` fetches of the packed (grad n, n-1) field —
@@ -13,8 +13,7 @@ TPU-native replacement for the reference's texture-unit interpolation
   CubicInterpolationCUDA (D. Ruijters), invoked via Host_Init (:1648-1660)
   and cubicTex3D (:912, 1216).
 
-TPUs have no texture units, so trilinear sampling is expressed as an
-8-corner gather + blend over a flat (D*H*W, 4) buffer (one XLA gather per
+Trilinear sampling is expressed as an 8-corner gather + blend over a flat (D*H*W, 4) buffer (one XLA gather per
 stage), replicating CUDA's convention that an unnormalized texture
 coordinate ``x`` samples voxel centers at ``x - 0.5`` with clamped
 addressing.  The tricubic path interpolates prefiltered B-spline
@@ -26,6 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 
@@ -113,7 +113,8 @@ def sample_trilinear(field_flat, sizes, lookup):
     wz = jnp.concatenate([1 - tz, tz], axis=-1)
     wgt = (wz[:, :, None, None] * wy[:, None, :, None]
            * wx[:, None, None, :]).reshape(lookup.shape[0], 8)  # z,y,x order
-    return jnp.einsum("nk,nkc->nc", wgt, corners)
+    return jnp.einsum("nk,nkc->nc", wgt, corners,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 
@@ -207,4 +208,5 @@ def sample_tricubic(coeff_flat, sizes, lookup):
     vals = coeff_flat[flat.reshape(n, 64)]                  # (N, 64, C)
     wgt = (wz[:, :, None, None] * wy[:, None, :, None]
            * wx[:, None, None, :]).reshape(n, 64)
-    return jnp.einsum("nk,nkc->nc", wgt, vals)
+    return jnp.einsum("nk,nkc->nc", wgt, vals,
+                      precision=jax.lax.Precision.HIGHEST)

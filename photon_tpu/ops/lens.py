@@ -1,6 +1,6 @@
 """Vectorized lens/aperture propagation physics.
 
-TPU-native replacement for the reference's per-ray device functions
+Replacement for the reference's per-ray device functions
 (C12 lens paths in SURVEY.md):
 
 * sphere intersection — ref: parallel_ray_tracing.cu ray_sphere_intersection
@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -43,11 +44,15 @@ def _normalize(v):
 
 
 def _poison(rays: RayBundle, bad) -> RayBundle:
-    """Set rays where ``bad`` is True to NaN (the reference's failure path)."""
-    nan3 = jnp.where(bad[:, None], jnp.nan, 1.0)
-    nan1 = jnp.where(bad, jnp.nan, 1.0)
-    return RayBundle(rays.pos * nan3, rays.dir * nan3,
-                     rays.wavelength * nan1, rays.radiance * nan1)
+    """Set rays where ``bad`` is True to NaN (the reference's failure path).
+
+    A select, not a multiply by NaN: the backward pass then sends a zero
+    cotangent to poisoned rays instead of NaN * 0 = NaN."""
+    bad3 = bad[:, None]
+    return RayBundle(jnp.where(bad3, jnp.nan, rays.pos),
+                     jnp.where(bad3, jnp.nan, rays.dir),
+                     jnp.where(bad, jnp.nan, rays.wavelength),
+                     jnp.where(bad, jnp.nan, rays.radiance))
 
 
 def ray_sphere_intersection(center, radius, direction, origin, surface: str):
@@ -75,8 +80,10 @@ def ray_sphere_intersection(center, radius, direction, origin, surface: str):
         t = jnp.where(radius > 0, lo, hi)
     else:
         t = jnp.where(radius > 0, lo, hi)  # same branch; see docstring
-    t = jnp.where(miss, jnp.nan, t)
-    return origin + direction * t[:, None]
+    # NaN only after the product: a NaN t would turn the zero cotangent
+    # of a missed ray into NaN in the backward pass
+    hit = origin + direction * jnp.where(miss, 0.0, t)[:, None]
+    return jnp.where(miss[:, None], jnp.nan, hit)
 
 
 def distance_to_optical_axis(pos, axis_point, plane_normal):
@@ -116,11 +123,17 @@ def _refract(direction, normal, ratio):
     return _normalize(out), tir
 
 
+def _dot(a, b):
+    """Full-f32 product: positions are ~1e6 um, so a TF32 product would
+    misplace the plane hits by hundreds of um."""
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def propagate_thin_lens(rays: RayBundle, center, plane, pitch,
                         focal_length) -> RayBundle:
     """Ideal thin-lens deflection at the lens plane (ref: :416-503)."""
     n = plane[:3]
-    t_hit = -(rays.pos @ n + plane[3]) / (rays.dir @ n)
+    t_hit = -(_dot(rays.pos, n) + plane[3]) / _dot(rays.dir, n)
     hit = rays.pos + rays.dir * t_hit[:, None]
     r = distance_to_optical_axis(hit, center, n)
     rays = RayBundle(hit, rays.dir, rays.wavelength, rays.radiance)
@@ -168,10 +181,13 @@ def propagate_thick_lens(rays: RayBundle, center, plane, pitch,
     # radiance: absorbance over the glass path, else transmission scaling
     # (ref: :838-853 — note the reference multiplies, rather than
     # exponentiates, the absorbance path length; reproduced as-is)
-    path = jnp.linalg.norm(rays.pos - entry_pos, axis=-1)
-    radiance = jnp.where(absorbance_rate != 0.0,
-                         (1.0 - absorbance_rate) * rays.radiance * path,
-                         transmission_ratio * rays.radiance)
+    # (absorbance_rate is a static float: a traced select would send the
+    # unused branch a zero cotangent through |path|, NaN where path = 0)
+    if absorbance_rate != 0.0:
+        path = jnp.linalg.norm(rays.pos - entry_pos, axis=-1)
+        radiance = (1.0 - absorbance_rate) * rays.radiance * path
+    else:
+        radiance = transmission_ratio * rays.radiance
     rays = _poison(RayBundle(rays.pos, new_dir, rays.wavelength, radiance),
                    tir)
     return rays
@@ -184,7 +200,7 @@ def propagate_aperture(rays: RayBundle, center, plane, pitch,
     norm_mag = jnp.linalg.norm(n)
     for ds in (-vertex_distance / 2.0, +vertex_distance / 2.0):
         d_plane = plane[3] - ds * norm_mag
-        t_hit = -(rays.pos @ n + d_plane) / (rays.dir @ n)
+        t_hit = -(_dot(rays.pos, n) + d_plane) / _dot(rays.dir, n)
         hit = rays.pos + rays.dir * t_hit[:, None]
         r = distance_to_optical_axis(hit, center, n)
         rays = _poison(RayBundle(hit, rays.dir, rays.wavelength,

@@ -1,6 +1,6 @@
 """Curved-ray (eikonal) marching through a refractive-index volume.
 
-TPU-native replacement for the reference's density-gradient ray marcher
+Replacement for the reference's density-gradient ray marcher
 (C13 in SURVEY.md, ``trace_rays_through_density_gradients.h``):
 
 * AABB entry — ref: IntersectWithVolume (:100-186), including the

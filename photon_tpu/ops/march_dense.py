@@ -1,21 +1,18 @@
-"""Gather-free chief-ray march: dense-weight matmul interpolation.
+"""Dense-weight chief-ray march for volumes with small slabs.
 
 The production BOS/PIV fast path marches one *chief ray per particle*
 (ops.march_fast.march_chief_deltas explains why that is exact to the
-lens-cone width).  Round-1 profiling showed the per-particle voxel-tube
-extraction — XLA's gather runs at ~70M elem/s on TPU — consuming 6.4 s
-of the 6.5 s BOS bench forward.  This module removes the gather
-entirely:
+lens-cone width).  This module samples the field without a gather:
 
 For a z-slab scan, interpolating P rays inside one (H, W) slab is a
 *bilinear form*  s[p] = sum_ij wy[p,j] wx[p,i] slab[j,i]  whose x/y
 weight vectors are dense (P, W) / (P, H) matrices with 2 (trilinear) or
 4 (cubic B-spline) nonzeros per row.  Evaluated densely, the x
-contraction is a single MXU matmul (P, W) @ (W, 2*H*C) per integrator
-stage — streaming, compiler-tiled, no scatter/gather anywhere — and the
-y/z contraction is one fused elementwise-reduce pass over the (P, 2*H*C)
-product.  For volumes up to ~128x128 per slab this is far cheaper than
-any per-particle windowing; larger volumes fall back to the tube path.
+contraction is one matrix product (P, W) @ (W, 2*H*C) per integrator
+stage and the y/z contraction is one fused elementwise-reduce pass over
+the (P, 2*H*C) product.  That costs O(W) multiply-adds per sample and a
+(P, 2*H*C) intermediate per stage, so it is used up to 128x128 slabs;
+larger volumes take the gather-based tube march (ops.march_fast).
 
 The integrator is the same exact (non-paraxial) eikonal ODE in the z
 parametrization as ops.march_fast (Sharma's T = n * dr/ds):
@@ -46,26 +43,19 @@ from photon_tpu.volume import DensityVolume
 
 # matmul precision for the interpolation contraction: the field values
 # (grad n ~ 1e-9/um, n-1 ~ 1e-4) and hat weights both need more than
-# bf16's 8 mantissa bits for micro-radian deflection accuracy
+# bf16's 8 (or TF32's 10) mantissa bits for micro-radian deflection
+# accuracy
 _PRECISION = jax.lax.Precision.HIGHEST
 
-# dense weights are built over the full slab axes.  The XLA sampler
-# materializes a (P, 2*H*4) intermediate per stage, worthwhile up to
-# ~128^2 slabs; the fused Pallas sampler keeps the slab pair + weights
-# in VMEM (a 256^2 slab pair is 2 MB) and stays ahead of the tube
-# fallback up to ~256^2, beyond which the O(W*H) per-ray contraction
-# loses to the O(TW^2) tube march.
+# dense weights span the full slab axes and the sampler materializes a
+# (P, 2*H*4) intermediate per stage, so the cost per sample grows with
+# the slab; past this cap the tube march (O(TW^2) per sample) takes over
 DENSE_MAX_SLAB = 128 * 128
-DENSE_MAX_SLAB_PALLAS = 256 * 256
 
 
-def dense_march_supported(vol: DensityVolume,
-                          use_pallas_sampler: Optional[bool] = None) -> bool:
-    if use_pallas_sampler is None:
-        use_pallas_sampler = jax.default_backend() == "tpu"
-    cap = DENSE_MAX_SLAB_PALLAS if use_pallas_sampler else DENSE_MAX_SLAB
+def dense_march_supported(vol: DensityVolume) -> bool:
     w, h, _ = vol.sizes
-    return int(w) * int(h) <= cap
+    return int(w) * int(h) <= DENSE_MAX_SLAB
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +74,8 @@ def _prefilter_axis_jax(x, axis: int):
     horizon = min(n, max(12, int(math.ceil(math.log(1e-7)
                                            / math.log(abs(_POLE))))))
     zk = (_POLE ** np.arange(horizon)).astype(np.float32)
-    c0 = lam * jnp.tensordot(jnp.asarray(zk), x[:horizon], axes=(0, 0))
+    c0 = lam * jnp.tensordot(jnp.asarray(zk), x[:horizon], axes=(0, 0),
+                             precision=_PRECISION)
 
     def fwd(c_prev, xi):
         c = lam * xi + z * c_prev
@@ -170,7 +161,7 @@ def _cubic_weights(u, n: int):
 
 
 def _slab_sample(pair_T, wx, wy0, wy1, h: int):
-    """One MXU contraction + fused reduce: samples of both slabs.
+    """One matrix product + fused reduce: samples of both slabs.
 
     pair_T: (W, 2*H*4) — slab pair (lo, hi) transposed for the x
     contraction.  wy0/wy1 already include the z blend factors
@@ -187,8 +178,7 @@ def _slab_sample(pair_T, wx, wy0, wy1, h: int):
 
 def march_chief_dense(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
                       algorithm: int = 2, interpolation_scheme: int = 1,
-                      field=None, use_pallas_sampler: Optional[bool] = None,
-                      substeps: Optional[int] = None):
+                      field=None, substeps: Optional[int] = None):
     """March (P,) chief rays through the volume; dense-weight sampling.
 
     Same contract as ops.march_fast.march_tubes with (P,) states: rays
@@ -199,43 +189,14 @@ def march_chief_dense(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
     gradients can flow in inverse problems.  For
     ``interpolation_scheme=2`` the B-spline prefilter runs here (in JAX,
     differentiable) — pass raw samples, not coefficients.
-
-    ``use_pallas_sampler``: evaluate each integrator stage's slab sample
-    with the fused VMEM kernel (ops.march_dense_pallas) instead of the
-    XLA matmul+reduce — same math, ~5x less HBM traffic (the XLA path
-    writes a (P, 2*H*4) intermediate per stage).  Defaults to on for TPU
-    backends.
     """
     w, h, d = (int(s) for s in vol.sizes)
-    if use_pallas_sampler is None:
-        use_pallas_sampler = jax.default_backend() == "tpu"
-    if w * h > (DENSE_MAX_SLAB_PALLAS if use_pallas_sampler
-                else DENSE_MAX_SLAB):
+    if w * h > DENSE_MAX_SLAB:
         raise ValueError(
-            f"slab {w}x{h} exceeds the dense-march limit "
-            "(the XLA sampler materializes (P, 2*H*4) per stage; the "
-            "Pallas sampler holds the slab pair in VMEM) — route large "
-            "volumes through the tube march (render_image_fast does "
-            "this automatically)")
-    import os
-    if use_pallas_sampler and algorithm in (1, 2, 3) \
-            and w * h <= DENSE_MAX_SLAB_PALLAS \
-            and os.environ.get("PHOTON_FUSED_MARCH", "1") == "1":
-        # whole-march fused kernel: one pallas_call for all slabs x
-        # stages, ray state in VMEM scratch, packed-K (2H) contraction
-        # (see ops.march_dense_fused; AB4 keeps the per-stage path).
-        # The ray-block size shrinks with slab area (1024/512/256 at
-        # 64^2/128^2/256^2) to keep the pair + bf16-split copies inside
-        # VMEM.  PHOTON_FUSED_MARCH=0 falls back to the per-stage
-        # sampler — note the env var is read at TRACE time inside jitted
-        # callers, so toggling it after a first compilation requires
-        # jax.clear_caches() (bench.py does this on its fallback path).
-        from photon_tpu.ops.march_dense_fused import march_chief_fused
-        return march_chief_fused(
-            vol, xs, ys, zs, dcx, dcy, dcz, algorithm=algorithm,
-            interpolation_scheme=interpolation_scheme, field=field,
-            substeps=substeps,
-            interpret=jax.default_backend() != "tpu")
+            f"slab {w}x{h} exceeds the dense-march limit (the sampler "
+            "materializes (P, 2*H*4) per stage) — route large volumes "
+            "through the tube march (render_image_fast does this "
+            "automatically)")
     if field is None:
         field = vol.field
     if interpolation_scheme == 2:
@@ -268,18 +229,9 @@ def march_chief_dense(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
 
     # scanned inputs: slab pairs transposed for the x contraction,
     # ordered top-down (landing planes k = d-2 .. 0)
-    if use_pallas_sampler:
-        from photon_tpu.ops.march_dense_pallas import (dense_slab_sample,
-                                                       pairs_transposed)
-        lo_T, hi_T = pairs_transposed(field)           # (S, W*4, H) each
-        pairs = (lo_T, hi_T)
-        # interpret mode off-TPU so CPU tests can drive the same kernel
-        sampler_static = (w, h, interpolation_scheme,
-                          jax.default_backend() != "tpu")
-    else:
-        field_T = jnp.transpose(field, (0, 2, 1, 3))   # (D, W, H, 4)
-        pairs = jnp.stack([field_T[:-1], field_T[1:]], axis=2)
-        pairs = jnp.flip(pairs, axis=0).reshape(d - 1, w, 2 * h * 4)
+    field_T = jnp.transpose(field, (0, 2, 1, 3))       # (D, W, H, 4)
+    pairs = jnp.stack([field_T[:-1], field_T[1:]], axis=2)
+    pairs = jnp.flip(pairs, axis=0).reshape(d - 1, w, 2 * h * 4)
     ks = jnp.arange(d - 2, -1, -1, dtype=jnp.float32)
     # landing planes are voxel-center z's, except the last: the march
     # domain is the reference's inside_box range [z_min, z_max], so the
@@ -302,15 +254,10 @@ def march_chief_dense(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
         uz = jnp.clip((z_at - z_plane) / dz_slab, 0.0, 1.0)
         ux = 0.5 + (px - min_x) / sx
         uy = 0.5 + (py - min_y) / sy
-        if use_pallas_sampler:
-            gx, gy, gz, nm1 = dense_slab_sample(
-                sampler_static, pair_T[0], pair_T[1], ux, uy, uz)
-        else:
-            wx = weights(ux, w)
-            wy = weights(uy, h)
-            gx, gy, gz, nm1 = _slab_sample(pair_T, wx,
-                                           wy * (1.0 - uz)[:, None],
-                                           wy * uz[:, None], h)
+        wx = weights(ux, w)
+        wy = weights(uy, h)
+        gx, gy, gz, nm1 = _slab_sample(pair_T, wx, wy * (1.0 - uz)[:, None],
+                                       wy * uz[:, None], h)
         inv_tz = 1.0 / tz
         g = (1.0 + nm1) * inv_tz
         return (tx * inv_tz, ty * inv_tz, g * gx, g * gy, g * gz)
@@ -430,17 +377,13 @@ def choose_substeps(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
                 interpolation_scheme=interpolation_scheme,
                 substeps=substeps)
     else:
-        # beyond the dense cap: probe through the windowed march on a
-        # subsample-local plan (same integrator semantics)
-        from photon_tpu.ops.march_window import (march_chief_windowed,
-                                                 plan_windows)
-        plan = plan_windows(vol, *[np.asarray(a) for a in sub],
-                            require_profit=False)
-        if plan is None:
-            return 2
+        # beyond the dense cap: probe through the tube march (same
+        # integrator semantics)
+        from photon_tpu.ops.march_fast import march_chief_tubes
+
         def marcher(substeps):
-            return march_chief_windowed(
-                vol, plan, *sub, algorithm=3,
+            return march_chief_tubes(
+                vol, *sub, algorithm=3,
                 interpolation_scheme=interpolation_scheme,
                 substeps=substeps)
 
@@ -464,8 +407,7 @@ def choose_substeps(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
 
 def chief_deltas_dense(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
                        algorithm: int = 2, interpolation_scheme: int = 1,
-                       field=None, use_pallas_sampler: Optional[bool] = None,
-                       substeps: Optional[int] = None):
+                       field=None, substeps: Optional[int] = None):
     """Dense-march twin of ops.march_fast.march_chief_deltas.
 
     Returns ``(z_exit, dpos_x, dpos_y, ddir_x, ddir_y, ddir_z)``, each
@@ -475,7 +417,7 @@ def chief_deltas_dense(vol: DensityVolume, xs, ys, zs, dcx, dcy, dcz, *,
     x1, y1, z1, dx1, dy1, dz1 = march_chief_dense(
         vol, xs, ys, zs, dcx, dcy, dcz, algorithm=algorithm,
         interpolation_scheme=interpolation_scheme, field=field,
-        use_pallas_sampler=use_pallas_sampler, substeps=substeps)
+        substeps=substeps)
     t = (z1 - zs) / dcz
     return (z1, x1 - (xs + dcx * t), y1 - (ys + dcy * t),
             dx1 - dcx, dy1 - dcy, dz1 - dcz)

@@ -1,7 +1,7 @@
 """Mie scattering: Bohren-Huffman series, particle-size statistics, and the
 per-diameter irradiance table.
 
-TPU-native replacement for the reference's Mie layer (C5/C6 in SURVEY.md):
+Replacement for the reference's Mie layer (C5/C6 in SURVEY.md):
 
 * ``bhmie`` — ref: python_codes/bhmie.py:3-173 (itself a port of the
   Bohren & Huffman book code).  Reimplemented here as a vectorized

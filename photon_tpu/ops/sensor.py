@@ -1,6 +1,6 @@
 """Differentiable sensor integration: ray -> pixel scatter-add.
 
-TPU-native replacement for the reference's sensor stage (C12 sensor paths):
+Replacement for the reference's sensor stage (C12 sensor paths):
 
 * erf diffraction-spot splat — ref: parallel_ray_tracing.cu
   intersect_sensor_02 (:1383-1543) and the identical splat inside

@@ -1,6 +1,6 @@
 """Simulation drivers: end-to-end PIV / BOS / calibration image generation.
 
-TPU-native replacement for the reference's orchestration layer
+Replacement for the reference's orchestration layer
 (``run_simulation_02.run_simulation_02``, ref: run_simulation_02.py:1725-2106):
 builds the optical system, generates the scene, renders (reference +
 density-gradient image pair for BOS), post-processes and writes TIFF/raw
@@ -63,8 +63,8 @@ def can_use_fast_renderer(cfg: SimulationConfig, setup: CameraSetup,
     scattering (the per-particle Mie collapse is valid for every table),
     erf-diffraction or bilinear sensor deposits, per-ray sensor position
     noise, and the full density-march menu — all four integrators x
-    trilinear/tricubic at any volume size (fused dense march for slabs
-    to 256x256, windowed fused march beyond, voxel-tube fallback).
+    trilinear/tricubic at any volume size (dense march for slabs up to
+    128x128, voxel-tube march beyond).
     Routed to the exact path: tilted/multi-element trains,
     gradient-index noise, Abbe/Cauchy dispersion, nonzero absorbance.
     """
@@ -304,7 +304,9 @@ def _save_intermediate_rays(cfg: SimulationConfig, setup: CameraSetup,
     shift = jnp.asarray([0.0, 0.0, params.z_offset + 750e3],
                         dtype=rays.pos.dtype)
     inv_rot = jnp.asarray(setup.inverse_rotation_matrix, rays.pos.dtype)
-    rays_w = RayBundle((rays.pos - shift) @ inv_rot.T, rays.dir @ inv_rot.T,
+    hi = jax.lax.Precision.HIGHEST
+    rays_w = RayBundle(jnp.matmul(rays.pos - shift, inv_rot.T, precision=hi),
+                       jnp.matmul(rays.dir, inv_rot.T, precision=hi),
                        rays.wavelength, rays.radiance)
     n_steps = int(cfg.output_data.num_intermediate_positions_save)
     _, (ipos, idir) = march_rays(

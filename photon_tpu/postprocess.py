@@ -1,6 +1,6 @@
 """Image post-processing: noise, gain, quantization, cropping.
 
-TPU-native replacement for the reference's post-render stage
+Replacement for the reference's post-render stage
 (ref: perform_ray_tracing_03.py:2193-2259): additive Gaussian noise scaled
 by ``image_noise * 100`` counts, clipping at zero, pixel gain
 ``10^(dB/20)``, normalization to ``2^bit_depth - 1`` by the image maximum,

@@ -2,7 +2,7 @@
 
 The reference's observability is wall-clock printfs around the kernel
 loop (ref: parallel_ray_tracing.cu:3498-3684, batch_run_simulation.py:53).
-TPU-native equivalent: lightweight phase timers with rays/s, an optional
+Equivalent: lightweight phase timers with rays/s, an optional
 ``jax.profiler`` trace context for per-op analysis, and ray-survival
 statistics (the reference's NaN-culled rays, countable instead of
 printf'd).

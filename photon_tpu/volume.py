@@ -1,6 +1,6 @@
 """Refractive-index volume ingest and gradient precompute.
 
-TPU-native replacement for the reference's density-volume setup (C13 setup
+Replacement for the reference's density-volume setup (C13 setup
 in SURVEY.md, ``trace_rays_through_density_gradients.h``):
 
 * NRRD load + Gladstone-Dale conversion rho -> (n - 1) = K rho —

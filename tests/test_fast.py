@@ -40,8 +40,9 @@ def test_fast_matches_reference_no_gradients(lens_model):
         == np.unravel_index(img_fast.argmax(), img_fast.shape)
 
 
-def test_fast_matches_reference_with_gradients():
-    cfg, setup, src, *_ , r1, r2 = _scene("general")
+@pytest.mark.parametrize("lens_model", ["apparent", "thin-lens", "general"])
+def test_fast_matches_reference_with_gradients(lens_model):
+    cfg, setup, src, *_ , r1, r2 = _scene(lens_model)
     vol, eps, Z_D = gradient_volume_between(setup)
     march_fn = make_march_fn(vol, algorithm=2)
     img_ref = np.asarray(render_image(cfg, setup, src, r1, r2,

@@ -63,12 +63,11 @@ def test_bos_inversion_recovers_gradient():
 
 
 def test_bos_inversion_through_windowed_march():
-    """The framework's north star at CI size: differentiable BOS
-    inversion through a volume BEYOND the dense-march cap (>256^2
-    slabs), i.e. gradients flow through the windowed custom_vjp kernel
-    (round-4 verdict #1: this used to fall to the tube path).  Also
-    regression-guards render_image_fast being traced inside an outer
-    jit with the windowed drift check active."""
+    """Differentiable BOS inversion through a volume BEYOND the
+    dense-march cap, from a cold start: the first render of the scene
+    happens inside invert_bos's jitted value_and_grad, so gradients flow
+    through the tube march under an outer jit with nothing planned or
+    cached beforehand."""
     from photon_tpu.ops.march_dense import dense_march_supported
     from photon_tpu.volume import build_density_volume
 
@@ -77,7 +76,7 @@ def test_bos_inversion_through_windowed_march():
     src, *_ = bos_source(cfg, setup, np.random.default_rng(4))
     r1, r2 = lens_samples(jax.random.key(9), 8)
 
-    n, d = 288, 6
+    n, d = 144, 6
     x = np.linspace(-2e5, 2e5, n)
     z = np.linspace(setup.object_distance - 0.6 * setup.object_distance,
                     setup.object_distance - 0.1 * setup.object_distance, d)
@@ -89,8 +88,12 @@ def test_bos_inversion_through_windowed_march():
         [x[0], x[0], z[0]])
     assert not dense_march_supported(vol_true)
 
-    observed = np.asarray(render_image_fast(cfg, setup, src, r1, r2,
-                                            vol=vol_true))
+    # the observation comes from the exact path, so the fast renderer
+    # has never seen this scene when invert_bos traces it under jit
+    from photon_tpu.models.render import render_image
+    from photon_tpu.ops.march import make_march_fn
+    observed = np.asarray(render_image(
+        cfg, setup, src, r1, r2, march_fn=make_march_fn(vol_true)))
     result = invert_bos(cfg, setup, src, r1, r2, observed, vol_true,
                         steps=20, learning_rate=0.02)
     assert np.isfinite(result.losses).all()

@@ -142,7 +142,7 @@ def test_tube_tricubic_256_volume_matches_exact():
 
 def test_tube_gradients_flow_large_volume():
     """jax.grad through the large-volume tricubic tube march is finite
-    and nonzero (gradients previously raised via the Pallas default)."""
+    and nonzero."""
     cfg = bos_case("general")
     setup = camera_setup(cfg)
     vol = big_volume(setup, n_xy=136, n_z=12)

@@ -174,3 +174,98 @@ def test_splat_is_differentiable():
     g = jax.grad(loss)(jnp.float32(0.0))
     assert np.isfinite(float(g))
     assert abs(float(g)) > 1e-4  # moving the ray moves the centroid
+
+
+# ---------------------------------------------------------------------------
+# The fast path's per-particle splat (ops.sensor_fast.particle_splat)
+# against the per-ray erf splat above
+# ---------------------------------------------------------------------------
+
+
+def _spots_as_rays(X, Y, nx, ny, pitch):
+    """Sensor-plane rays (straight down, so cos^4 = 1) whose mirrored
+    pixel coordinates minus 0.5 are (X, Y)."""
+    x = -pitch * (nx - 1) / 2.0 + (nx - 1 - (X + 0.5)) * pitch
+    y = -pitch * (ny - 1) / 2.0 + (Y + 0.5) * pitch
+    pos = jnp.stack([x, y, jnp.zeros_like(x)], -1)
+    direction = jnp.broadcast_to(jnp.asarray([0.0, 0.0, -1.0]), pos.shape)
+    return pos, direction
+
+
+def _both_splats(X, Y, radiance, nx, ny, D, rf, pitch=17.0):
+    from photon_tpu.ops.sensor_fast import particle_splat
+
+    patch = max(6, math.ceil(2.0 * rf * D + 3.0))
+    A = radiance * (8.0 / math.pi)
+    fast = particle_splat(X, Y, A, jnp.round(X).astype(jnp.int32),
+                          jnp.round(Y).astype(jnp.int32), nx=nx, ny=ny,
+                          diameter=D, patch=patch, render_fraction=rf)
+    pos, direction = _spots_as_rays(X, Y, nx, ny, pitch)
+    ref = diffraction_splat(pos, direction, radiance,
+                            jnp.ones(X.shape, bool), nx=nx, ny=ny,
+                            pixel_pitch=pitch, diameter=D,
+                            render_fraction=rf)
+    return fast, ref
+
+
+@pytest.mark.parametrize("D,rf", [(2.5, 0.75), (3.0, 0.75), (4.2, 1.0)])
+def test_particle_splat_matches_ray_splat_interior(D, rf):
+    rng = np.random.default_rng(int(D * 10))
+    nx = ny = 48
+    X = jnp.asarray(rng.uniform(8, nx - 9, 20), jnp.float32)
+    Y = jnp.asarray(rng.uniform(8, ny - 9, 20), jnp.float32)
+    rad = jnp.asarray(rng.uniform(0.5, 2.0, 20), jnp.float32)
+    fast, ref = _both_splats(X, Y, rad, nx, ny, D, rf)
+    assert float(ref.sum()) > 0
+    np.testing.assert_allclose(np.asarray(fast), np.asarray(ref),
+                               rtol=1e-4, atol=1e-6 * float(ref.max()))
+
+
+def test_particle_splat_matches_ray_splat_at_borders():
+    """Spots whose circle crosses the frame edge: the fast splat clamps
+    its patch inside the frame, the ray splat drops out-of-frame pixels;
+    both keep exactly the in-frame part.  (Centres stay on the sensor:
+    the fast path drops off-sensor rays before it sums a particle's
+    amplitude.)"""
+    nx, ny = 40, 32
+    X = jnp.asarray([0.2, 1.6, nx - 1.3, nx - 0.6, 20.0, 3.0],
+                    jnp.float32)
+    Y = jnp.asarray([15.0, 0.4, ny - 1.1, 2.0, ny - 0.7, ny - 2.5],
+                    jnp.float32)
+    rad = jnp.ones(6, jnp.float32)
+    fast, ref = _both_splats(X, Y, rad, nx, ny, 3.0, 0.75)
+    np.testing.assert_allclose(np.asarray(fast), np.asarray(ref),
+                               rtol=1e-4, atol=1e-6 * float(ref.max()))
+
+
+def test_particle_splat_gradient_matches_ray_splat():
+    """d(weighted image)/d(spot centre, amplitude) agree."""
+    from photon_tpu.ops.sensor_fast import particle_splat
+
+    nx = ny = 40
+    rng = np.random.default_rng(5)
+    X0 = jnp.asarray(rng.uniform(6, nx - 7, 8), jnp.float32)
+    Y0 = jnp.asarray(rng.uniform(6, ny - 7, 8), jnp.float32)
+    rad0 = jnp.asarray(rng.uniform(0.5, 2.0, 8), jnp.float32)
+    w = jnp.asarray(rng.random((ny, nx)), jnp.float32)
+    col = jnp.round(X0).astype(jnp.int32)
+    row = jnp.round(Y0).astype(jnp.int32)
+
+    def fast(X, Y, rad):
+        return jnp.sum(w * particle_splat(
+            X, Y, rad * (8.0 / math.pi), col, row, nx=nx, ny=ny,
+            diameter=3.0, patch=8, render_fraction=0.75))
+
+    def ref(X, Y, rad):
+        pos, direction = _spots_as_rays(X, Y, nx, ny, 17.0)
+        return jnp.sum(w * diffraction_splat(
+            pos, direction, rad, jnp.ones(X.shape, bool), nx=nx, ny=ny,
+            pixel_pitch=17.0, diameter=3.0, render_fraction=0.75))
+
+    g_f = jax.grad(fast, argnums=(0, 1, 2))(X0, Y0, rad0)
+    g_r = jax.grad(ref, argnums=(0, 1, 2))(X0, Y0, rad0)
+    for a, b in zip(g_f, g_r):
+        a, b = np.asarray(a), np.asarray(b)
+        assert np.abs(b).max() > 0
+        np.testing.assert_allclose(a, b, rtol=2e-3,
+                                   atol=2e-4 * np.abs(b).max())
